@@ -2,7 +2,7 @@
 // record parsing, quality trimming, k-mer sieving, base encoding and live
 // statistics -- optionally fanned out over worker threads.
 //
-// TPU-native equivalent of the reference scan engine's host half
+// Equivalent of the reference scan engine's host half
 // (csrc/workhorse.c:482-956 gz/file streaming, :1010-1103 record
 // parse/trim, :1375-1408 pthread fan-out over a mutex-shared stream in
 // /root/reference): instead of feeding a pthread scan loop, workers fill
@@ -68,11 +68,9 @@ constexpr size_t CHUNKSIZE = 8u * 1024 * 1024;
 constexpr size_t WORKCHUNK = 1u * 1024 * 1024;  // per work-item span
 constexpr uint8_t CODE_READ_JUNK = 5;  // kvarq_tpu/engine/encode.py
 // default records per kvq_next call: bounds live-stats/stop() latency.
-// Kept large: on networked TPU attachments every device dispatch costs
-// a fixed ~30-90 ms regardless of batch size, so fewer/fuller candidate
-// batches beat finer-grained reader/device overlap (measured); lower it
-// (kvq_open arg / $KVARQ_PARSE_CAP) on locally-attached chips where
-// dispatch is cheap and overlap wins.
+// Large values give fewer, fuller candidate batches; smaller ones give
+// finer-grained reader/device overlap (kvq_open arg / $KVARQ_PARSE_CAP).
+// Not measured on the GPU host yet.
 constexpr int64_t DEFAULT_PARSE_CAP = 4 * 262144;
 
 // $KVARQ_PROF=1: aggregate per-phase cycle counters (printed to stderr

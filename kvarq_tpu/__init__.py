@@ -1,17 +1,18 @@
 '''
-kvarq_tpu -- a TPU-native reimplementation of the KvarQ targeted
-variant-calling framework (reference: kvarq/kvarq).
+kvarq_tpu -- a reimplementation of the KvarQ targeted variant-calling
+framework (reference: kvarq/kvarq) as a JAX program that runs on a GPU.
 
 KvarQ calls variants (lineage SNPs, resistance mutations, spoligotypes)
 directly from FastQ reads of bacterial genomes, without mapping or
 assembly.  This package provides the same capabilities, redesigned for
-TPU hardware:
+an accelerator:
 
 - the hot scanning loop (reference ``csrc/workhorse.c``) is a batched
-  string-match kernel running on TPU via JAX/XLA/Pallas,
+  one-hot match (bf16 matmuls plus exact integer gating) compiled by
+  XLA for the GPU -- or for the CPU, when JAX is pointed there,
 - the input pipeline (FastQ parse, gzip inflate, quality trim) runs on
   host CPU (C++ with a pure-Python fallback),
-- multi-chip scale-out shards read batches data-parallel over a
+- multi-device scale-out shards read batches data-parallel over a
   ``jax.sharding.Mesh`` and merges per-locus coverage tensors with
   ``psum`` collectives (replacing the reference's pthread mutexes).
 

@@ -254,7 +254,7 @@ class Analyser:
             ``-H``/``--extract-hits`` work.  With ``keep_hits=False`` the
             scan runs fully tensorized on device
             (:py:func:`kvarq_tpu.engine.countseqs`): coverage/mutation
-            counts are accumulated on TPU with no host hit list -- much
+            counts are accumulated on device with no host hit list -- much
             faster, identical coverages/stats/results. '''
         self._record_fastq(fastq)
         self.testsuites = testsuites

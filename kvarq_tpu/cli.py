@@ -174,7 +174,7 @@ def cmd_scan(args):
         engine.config(backend=args.backend)
     if args.mesh:
         # -H/-x with --mesh routes through the sharded hit matcher
-        # (kvarq_tpu.parallel.ShardedMatcher): candidate kernel over the
+        # (kvarq_tpu.parallel.ShardedMatcher): candidate screen over the
         # mesh, exact rescore on host, hits identical to the unsharded
         # scan (tests/test_cli.py::test_scan_mesh_hits)
         engine.config(mesh=args.mesh)
@@ -630,11 +630,12 @@ _COMMANDS = [
         _arg('--variant', choices=list(Fastq.vendor_variants.keys()),
              help='specify .fastq variant manually in case heuristic '
                   'determination fails'),
-        _arg('--backend', choices=['auto', 'numpy', 'xla', 'pallas'],
-             help='engine compute backend (default: auto -- pallas on '
-                  'TPU, xla elsewhere)'),
+        _arg('--backend', choices=['auto', 'numpy', 'xla', 'screen'],
+             help='hit-list (-H/-x) compute backend (default: auto = '
+                  'xla; numpy = the byte-exact oracle; screen = candidate '
+                  'screen on one device + exact xla rescore)'),
         _arg('--mesh',
-             help='scan sharded over a multi-chip device mesh: "auto" '
+             help='scan sharded over a multi-device mesh: "auto" '
                   '(all devices, data-parallel) or "NDxNB" for an '
                   'explicit (data, bank) shape, e.g. "4x2" (incompatible '
                   'with -H/-x, which need the hit-list path)'),

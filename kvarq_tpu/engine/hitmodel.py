@@ -9,7 +9,7 @@ modes between a quality-trimmed read (length ``rl``) and a template (length
 
 under which the compared region is always the full intersection
 ``[max(0, d), min(seql, d + rl))`` of read and template, so a single
-mismatch profile ``mism(d)`` (computable by one correlation on TPU) serves
+mismatch profile ``mism(d)`` (computable by one correlation on device) serves
 all modes.  The modes then only *gate* which ``d`` yield hits:
 
 mode A  read tail over template head  (workhorse.c:1114-1127)

@@ -1,7 +1,6 @@
 '''
 Exact, byte-faithful reference matcher (numpy).  This is the golden model
-the TPU backends are verified against, and the fallback when no accelerator
-is available.
+the device backends are verified against.
 
 It compares raw read bytes against raw template bytes -- exactly like the C
 engine's inner loops (workhorse.c:1118-1171) -- vectorized over the batch and

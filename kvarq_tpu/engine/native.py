@@ -1,14 +1,15 @@
 '''
 ctypes binding for the native C++ FastQ pipeline (csrc/reader.cpp) -- the
-TPU-native equivalent of the reference engine's host half (file streaming,
+equivalent of the reference engine's host half (file streaming,
 gz inflate, record parse, quality trim; /root/reference/csrc/workhorse.c:482-1103
 and csrc/gz/miniz.c).  Drop-in replacement for the numpy pipeline in
 kvarq_tpu.engine.reader: same batch contents, same error messages, same
 statistics; ~100x faster per record.
 
-The shared library is built on demand with g++ (no pybind11/Python C-API;
-plain C ABI via ctypes).  Set ``KVARQ_NATIVE=0`` to force the numpy
-pipeline.
+The shared library (csrc/_reader.so, not tracked by git) is built from
+the source at first use with g++ (no pybind11/Python C-API; plain C ABI
+via ctypes), and rebuilt when the source changes.  Set ``KVARQ_NATIVE=0``
+to force the numpy pipeline.
 '''
 
 import ctypes
@@ -25,8 +26,8 @@ HERE = os.path.abspath(os.path.dirname(__file__))
 CSRC = os.path.join(os.path.dirname(os.path.dirname(HERE)), 'csrc')
 SRC = os.path.join(CSRC, 'reader.cpp')
 LIB = os.path.join(CSRC, '_reader.so')
-# pre-AVX2 hosts get their own build: the default (possibly shipped
-# prebuilt) _reader.so targets x86-64-v3 and would SIGILL there
+# pre-AVX2 hosts get their own build: the default _reader.so targets
+# x86-64-v3 and would SIGILL there
 LIB_COMPAT = os.path.join(CSRC, '_reader_compat.so')
 
 MAX_READLENGTH = reader.MAX_READLENGTH
@@ -53,8 +54,7 @@ _lib_failed = False
 def _src_hash():
     ''' sha256 of the C++ source, embedded into the library at build time
         (kvq_src_hash) and compared at load -- mtimes are useless for
-        staleness on fresh checkouts, where a shipped prebuilt .so and the
-        source get near-identical checkout-time mtimes '''
+        staleness on fresh checkouts and copies '''
     import hashlib
     with open(SRC, 'rb') as fd:
         return hashlib.sha256(fd.read()).hexdigest()[:16]
@@ -83,6 +83,19 @@ def _load_if_current(lib_path, want_hash):
 
 
 def _build(lib_path, generic=False):
+    ''' compile the library into a private temporary file and move it
+        into place with one rename, so a concurrent process (pytest-xdist
+        workers, parallel CLI runs) never loads a half-written library '''
+    tmp_path = '%s.%d.tmp' % (lib_path, os.getpid())
+    try:
+        _compile(tmp_path, generic)
+        os.replace(tmp_path, lib_path)
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+
+
+def _compile(lib_path, generic):
     # x86-64-v3 (AVX2 baseline) rather than -march=native: measured
     # equal on the hot loops (the SIMD paths are explicit AVX2
     # intrinsics), and the binary stays runnable on any post-2015
@@ -197,8 +210,8 @@ def batches(fnames, Amin, minreadlength, stats, batchsize=16384,
     names = (ctypes.c_char_p * len(fnames))(
         *[f.encode() for f in fnames])
     # records consumed per C call before control returns to Python:
-    # bounds progress/stop() latency and, on cheap-dispatch (local)
-    # attachments, enables reader/device overlap when lowered
+    # bounds progress/stop() latency; lowering it trades fewer, fuller
+    # candidate batches for finer reader/device overlap
     parse_cap = int(os.environ.get('KVARQ_PARSE_CAP', '0'))
     h = lib.kvq_open(names, len(fnames), Amin, minreadlength, nthreads,
                      parse_cap)

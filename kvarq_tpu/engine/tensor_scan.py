@@ -15,9 +15,9 @@ Outputs per batch (all densely tensorized, psum-able across devices):
 - ``seqhits`` [T+1], ``seqbasehits`` [T+1]: per-template hit counts /
   overlap-base sums (last slot collects gap positions and is discarded).
 
-Both accumulation contractions are one-hot correlations lowered onto the
-MXU; mode weights replicate kvarq_tpu.engine.hitmodel exactly, including
-the mode-B/D border duplicate (weight 2).
+Both accumulation contractions are one-hot correlations (plain matmuls);
+mode weights replicate kvarq_tpu.engine.hitmodel exactly, including the
+mode-B/D border duplicate (weight 2).
 '''
 
 import functools
@@ -37,8 +37,8 @@ def bank_device_arrays(bank, dtype=None):
     import jax
     import jax.numpy as jnp
     if dtype is None:
-        dtype = jnp.bfloat16 if jax.default_backend() != 'cpu' \
-            else jnp.float32
+        from kvarq_tpu.device import compute_dtype
+        dtype = compute_dtype()
     bank_oh = jax.nn.one_hot(jnp.asarray(bank.codes), encode.NBASE,
                              dtype=dtype).T                     # [5, G]
     return dict(
@@ -53,7 +53,7 @@ def bank_device_arrays(bank, dtype=None):
 def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
                  maxerrors, minoverlap):
     '''
-    mode gating shared by the XLA and Pallas scan paths: given match
+    mode gating shared by the XLA and screen scan paths: given match
     counts [B, Q] (any dtype holding exact integers), an i32 read-length
     column [B, 1] and i32 per-column metadata rows [1, Q], return
     ``(w, ov)`` -- i32 hit-mode weight (0/1/2, incl. the mode-B/D border
@@ -61,12 +61,9 @@ def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
     kvarq_tpu.engine.hitmodel for the semantics
     (reference workhorse.c:1107-1174).
 
-    All [B, Q]-sized arithmetic runs in **f32** -- every quantity is an
-    integer < 2^21, exact in f32, and the VPU runs integer elementwise
-    chains ~10x slower than float ones (measured: the same gating in
-    i32 cost 0.26 s vs 0.025 s per 1.2k x 40k tile).  Outputs cast back
-    to i32 so downstream seqhits/seqbasehits accumulation stays exact
-    past 2^24.
+    All [B, Q]-sized arithmetic runs in f32 -- every quantity is an
+    integer < 2^21, exact in f32.  Outputs cast back to i32 so
+    downstream seqhits/seqbasehits accumulation stays exact past 2^24.
     '''
     import jax.numpy as jnp
 
@@ -82,8 +79,8 @@ def mode_weights(matches, rl_col, d_row, seql_row, valid_row,
     #   C+D (containment)  <=>  ov == min(rl, seql)
     #   A                  <=>  ab and d < 0 and ov >= mo and ov != seql
     #   B                  <=>  ab and d > 0 and ov >= mo and d+rl >= seql
-    # -- roughly half the per-element VPU ops of the naive four-window
-    # gating, which otherwise rivals the MXU contraction in kernel time.
+    # -- roughly half the per-element ops of the naive four-window
+    # gating.
     t1 = d + rl_
     ov = jnp.minimum(seql, t1) - jnp.maximum(0., d)
     mism = ov - matches.astype(f32)
@@ -132,14 +129,13 @@ def scan_step_fn(Lpad, G, T, maxerrors, minoverlap, dtype_name='bfloat16',
         B = read_flat.shape[0]
 
         # im2col'd bank: K[(j,c), q] = bank_oh[c, q-(L-1)+j] -- built from
-        # L static slices of the zero-padded bank (cheap, fuses; both
-        # contractions below become plain MXU matmuls, which avoids XLA's
-        # pathological lowering of the wide-channel conv formulation)
+        # L static slices of the zero-padded bank, so both contractions
+        # below are plain matmuls
         bankpad = jnp.pad(bank_oh, ((0, 0), (L - 1, L - 1)))  # [5, Q+L-1]
         K = jnp.stack([bankpad[:, j:j + Q] for j in range(L)])  # [L, 5, Q]
         K = K.reshape(L * encode.NBASE, Q)
 
-        # 1) exhaustive match counts at every alignment (MXU)
+        # 1) exhaustive match counts at every alignment
         matches = jnp.dot(read_flat, K,
                           preferred_element_type=jnp.float32)  # [B, Q]
 
@@ -158,7 +154,7 @@ def scan_step_fn(Lpad, G, T, maxerrors, minoverlap, dtype_name='bfloat16',
         seqbasehits = jax.ops.segment_sum(wov_q, tseg, num_segments=T + 1)
 
         # 4) coverage accumulation: scatter each hit's read bases onto bank
-        # positions -- one MXU matmul plus a static diagonal fold.
+        # positions -- one matmul plus a static diagonal fold.
         #   basecount[c, g] = sum_b sum_j w[b, g + L-1 - j] read_oh[b,j,c]
         def rtw_full(_):
             return jnp.dot(read_flat.T, w.astype(in_dtype),
@@ -214,12 +210,25 @@ def _pack_acc(bc, sh, sbh, cm):
     return _pack_fn()(bc, sh, sbh, cm)
 
 
+def resolve_backend(backend=None):
+    ''' tensor-scan step backend: the explicit argument, else
+        ``$KVARQ_TENSOR_BACKEND``, else ``'screen'`` on an accelerator and
+        ``'xla'`` on the CPU '''
+    backend = backend or os.environ.get('KVARQ_TENSOR_BACKEND', 'auto')
+    if backend in ('', 'auto'):
+        from kvarq_tpu.device import accelerated
+        backend = 'screen' if accelerated() else 'xla'
+    if backend not in ('screen', 'xla'):
+        raise ValueError('unknown tensor-scan backend %r (screen or xla)'
+                         % backend)
+    return backend
+
+
 def default_gather_k():
     ''' resolve $KVARQ_GATHER_K: an explicit integer pins the compacted
-        exact-scoring width; ``auto`` (the default) starts at the
-        measured optimum 768 (BASELINE.md device row: 114.3 vs 110.5
-        TFLOP/s at the former 1024) and lets TensorScanner adapt upward
-        when the observed candidate count overflows it '''
+        exact-scoring width; ``auto`` (the default) starts at 768 and
+        lets TensorScanner adapt upward when the observed candidate
+        count overflows it '''
     v = os.environ.get('KVARQ_GATHER_K', 'auto').strip().lower()
     if v in ('', 'auto'):
         return 768, True
@@ -229,19 +238,16 @@ def default_gather_k():
 
 
 @functools.lru_cache(maxsize=8)
-def _cached_context(seqs, Lpad, maxerrors, minoverlap, backend, platform,
-                    fuse, gather_k=None):
+def _cached_context(seqs, Lpad, maxerrors, minoverlap, backend, fuse,
+                    gather_k=None):
     '''
     (bank, device arrays, jitted accumulate-step, device batch size) for a
     template bank + scan config.  Cached at module level so repeated scans
     in one process (CLI warmup + scan, GUI multi-file runs, benchmarks)
-    reuse the compiled executable -- on remote-compile TPU attachments a
-    fresh jit closure costs seconds even when the inner kernel is cached.
+    reuse the compiled executable.
 
     The jitted step consumes ``fuse`` stacked sub-batches
-    (``codes [fuse, sub, Lpad]``) per dispatch via ``lax.scan``: on
-    networked TPU attachments the per-dispatch round-trip dwarfs the
-    device compute, so batching dispatches is worth ~2x end-to-end.
+    (``codes [fuse, sub, Lpad]``) per dispatch via ``lax.scan``.
     '''
     import jax
 
@@ -252,32 +258,31 @@ def _cached_context(seqs, Lpad, maxerrors, minoverlap, backend, platform,
 
     bank = build_bank(list(seqs), Lpad, minoverlap)
     T = len(seqs)
-    if backend == 'pallas':
-        from kvarq_tpu.engine import pallas_scan
+    if backend == 'screen':
+        from kvarq_tpu.engine import screen_scan
         sub = 16384
-        arrays = pallas_scan.device_arrays(bank)
+        arrays = screen_scan.device_arrays(bank)
         # gather_k bounds the exact-scoring pass to the compacted
         # candidate reads; its two [gather_k, .] matmuls cost
-        # 2*gather_k/sub of the candidate kernel.  The measured-optimal
-        # default is 768 (12 sigma above the 3% candidate count of
-        # hit-rich unsieved data, 492 +- 22; 9.4% overhead, +3.8 TFLOP/s
-        # over the former 1024); overflow falls back to the exact
+        # 2*gather_k/sub of the screen's matmul.  768 sits above the
+        # ~500 candidates per 16384 reads of unsieved data with 3% of
+        # reads from template loci; overflow falls back to the exact
         # full-batch scoring pass, and TensorScanner adapts the width
         # upward from the observed candidate counts (with_count)
         if gather_k is None:
             gather_k = default_gather_k()[0]
-        step = pallas_scan.scan_step(
+        step = screen_scan.scan_step(
             Lpad, bank, T, maxerrors, minoverlap, sub,
-            gather_k=gather_k,
-            interpret=(platform == 'cpu'), with_count=True)
+            gather_k=gather_k, with_count=True)
     else:
+        from kvarq_tpu.device import compute_dtype
         arrays = bank_device_arrays(bank)
-        dtype = 'float32' if platform == 'cpu' else 'bfloat16'
         sub = max(64, min(8192,
                           TensorScanner.ELEM_BUDGET // max(bank.Q, 1)))
         gather_k = max(128, sub // 8)
         step = scan_step_fn(Lpad, bank.G, T, maxerrors, minoverlap,
-                            dtype_name=dtype, gather_k=gather_k)
+                            dtype_name=compute_dtype(),
+                            gather_k=gather_k)
 
     def step_acc(codes, rl, acc_bc, acc_sh, acc_sbh, acc_cm, **arrays):
         import jax.numpy as jnp
@@ -285,7 +290,7 @@ def _cached_context(seqs, Lpad, maxerrors, minoverlap, backend, platform,
         def body(carry, xs):
             bc, sh, sbh, cm = carry
             out = step(xs[0], xs[1], **arrays)
-            if len(out) == 4:              # pallas: candidate count
+            if len(out) == 4:              # screen: candidate count
                 dbc, dsh, dsbh, count = out
             else:
                 dbc, dsh, dsbh = out
@@ -306,36 +311,32 @@ class TensorScanner:
 
         All accumulation happens *on device* in donated buffers -- the
         steady-state loop uploads read batches and never transfers results
-        back, so device dispatch pipelines fully (important over networked
-        TPU attachments).  Accumulators are flushed to exact host int64
-        every :py:data:`FLUSH_STEPS` steps, far below any f32/i32
-        exactness/overflow bound. '''
+        back, so device dispatch pipelines fully.  Accumulators are
+        flushed to exact host int64 every :py:data:`FLUSH_STEPS` steps,
+        far below any f32/i32 exactness/overflow bound.
 
-    # cap on B*Q f32 elements materialized per device step (the [B, Q]
-    # matches tensor); the Pallas backend fuses it away instead
+        Two step backends: ``screen`` (the accelerator default --
+        :py:mod:`kvarq_tpu.engine.screen_scan`, candidate screen over a
+        host-built im2col bank) and ``xla`` (the CPU default --
+        :py:func:`scan_step_fn`, exact gating of every read under a
+        fixed element budget). '''
+
+    # cap on B*Q f32 elements materialized per xla-backend step (the
+    # [B, Q] matches tensor)
     ELEM_BUDGET = 96 * 1024 * 1024
     FLUSH_STEPS = 64
 
     def __init__(self, seqs, maxerrors, minoverlap, backend=None):
         import os
-        import jax
         self.seqs = list(seqs)
         self.maxerrors = maxerrors
         self.minoverlap = minoverlap
         self.T = len(self.seqs)
-        self.platform = jax.default_backend()
-        backend = backend or os.environ.get('KVARQ_TENSOR_BACKEND', 'auto')
-        if backend == 'auto':
-            # the fused Pallas kernel needs a real TPU; XLA elsewhere
-            backend = 'xla' if self.platform == 'cpu' else 'pallas'
-        self.backend = backend
-        # sub-batches fused into one device dispatch (lax.scan): amortizes
-        # the dispatch round-trip on networked TPU attachments.  With the
-        # k-mer sieve active (the default) full sub-batches are rare, so
-        # fusing would mostly pad junk; raise for sieve-less bulk scans.
+        self.backend = resolve_backend(backend)
+        # sub-batches fused into one device dispatch (lax.scan)
         self.fuse = int(os.environ.get('KVARQ_FUSE_STEPS', '1'))
-        # compacted exact-scoring width (pallas): start at the measured
-        # optimum; in auto mode the observed per-dispatch candidate
+        # compacted exact-scoring width (screen): start at 768; in auto
+        # mode the observed per-dispatch candidate
         # count (piggybacked on the accumulator) grows it when a
         # workload is hit-dense enough to overflow -- each overflowed
         # dispatch pays the full-batch scoring fallback, so a persistent
@@ -347,10 +348,10 @@ class TensorScanner:
     def assume_dense(self):
         ''' declare the input candidate-dense up front (sieve-fed scans:
             batches are packed with ONLY sieve-surviving reads, so
-            nearly every row kernel-flags) -- go straight to dense mode
+            nearly every row flags) -- go straight to dense mode
             instead of paying one discovery dispatch + context rebuild
             per scan.  No-op when gather_k was pinned explicitly. '''
-        if self._gather_auto and self.backend == 'pallas' \
+        if self._gather_auto and self.backend == 'screen' \
                 and not self._ctx:
             self.gather_k = 0
 
@@ -367,15 +368,15 @@ class TensorScanner:
         if Lpad not in self._ctx:
             bank, arrays, step, sub = _cached_context(
                 tuple(self.seqs), Lpad, self.maxerrors, self.minoverlap,
-                self.backend, self.platform, self.fuse, self.gather_k)
+                self.backend, self.fuse, self.gather_k)
             self._ctx[Lpad] = dict(
                 bank=bank, arrays=arrays, sub=sub, step=step,
                 acc=None, steps=0, pending=[], peeked=False)
         return self._ctx[Lpad]
 
     # gather_k growth buckets; a workload overflowing even the last
-    # bucket goes terminally to dense mode (gather_k 0: the screening
-    # kernel and compaction are dropped, every dispatch runs the exact
+    # bucket goes terminally to dense mode (gather_k 0: the screen and
+    # compaction are dropped, every dispatch runs the exact
     # full-batch pass directly)
     GATHER_BUCKETS = (768, 1536, 3072, 6144)
 
@@ -383,7 +384,7 @@ class TensorScanner:
         ''' grow gather_k when the observed per-dispatch candidate count
             overflows it (auto mode); returns True when the context was
             rebuilt (recompile -- amortized by the persistent cache) '''
-        if not self._gather_auto or self.backend != 'pallas':
+        if not self._gather_auto or self.backend != 'screen':
             return False
         if self.gather_k == 0:
             return False         # dense mode is terminal
@@ -407,7 +408,7 @@ class TensorScanner:
             self._flush(lp, adapt=False)
             bank, arrays, step, sub = _cached_context(
                 tuple(self.seqs), lp, self.maxerrors, self.minoverlap,
-                self.backend, self.platform, self.fuse, self.gather_k)
+                self.backend, self.fuse, self.gather_k)
             self._ctx[lp].update(bank=bank, arrays=arrays, step=step,
                                  sub=sub, acc=None, steps=0, pending=[])
         return True
@@ -458,12 +459,8 @@ class TensorScanner:
 
     def _flush(self, Lpad, adapt=True):
         ''' move device accumulators into the exact host-side int64/float64
-            accumulators (folding the pallas contraction on host).  The
-            accumulators are packed into ONE flat device array
-            first, so the readback costs a single transfer round trip --
-            on networked TPU attachments each np.asarray() is its own
-            ~45 ms round trip, and this tail lands on the critical path
-            at the end of every scan. '''
+            accumulators.  The accumulators are packed into ONE flat
+            device array first, so the readback is a single transfer. '''
         ctx = self._ctx[Lpad]
         if ctx['acc'] is None:
             return
@@ -491,20 +488,8 @@ class TensorScanner:
             self._dispatch(Lpad)
             self._flush(Lpad)
 
-    # the pallas path pads every batch up to this Lpad: one compiled
-    # executable covers all short-read buckets (each extra bucket costs
-    # minutes of remote compile time, far more than the padded FLOPs)
-    MIN_LPAD_PALLAS = 128
-
     def scan_batch(self, batch):
-        import jax
         B, Lpad = batch.codes.shape
-        if self.backend == 'pallas' and Lpad < self.MIN_LPAD_PALLAS:
-            codes = np.full((B, self.MIN_LPAD_PALLAS),
-                            encode.CODE_READ_JUNK, dtype=np.uint8)
-            codes[:, :Lpad] = batch.codes
-            batch = type(batch)(codes, batch.rl, batch.filepos, batch.raw)
-            Lpad = self.MIN_LPAD_PALLAS
         ctx = self._context(Lpad)
         if ctx['bank'].G == 0:
             return

@@ -39,7 +39,7 @@ class ThemedTk(tk.Tk):
             :py:func:`resolve_extent` for the accepted value forms
         '''
         tk.Tk.__init__(self)
-        self.wm_title('KvarQ-TPU %s%s'
+        self.wm_title('kvarq_tpu %s%s'
                       % (VERSION, ' -- ' + title if title else ''))
         try:
             # window icon (the reference ships res/TPH_DNA.ico; ours is

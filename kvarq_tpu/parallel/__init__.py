@@ -1,14 +1,16 @@
 '''
-Multi-chip scale-out over a ``jax.sharding.Mesh``.
+Multi-device scale-out over a ``jax.sharding.Mesh``.
 
 The reference scales with pthreads over a shared FastQ stream plus
 mutex-guarded shared counters (csrc/workhorse.c:1375-1408, :78-83); batch
 level scale-out is manual shell loops (docs/tutorial.rst:366-374).  The
-TPU-native equivalent implemented here shards the tensorized scan step
-(kvarq_tpu.engine.tensor_scan) over a 2-D device mesh:
+equivalent implemented here shards the tensorized scan step
+(kvarq_tpu.engine.tensor_scan) over a 2-D device mesh.  The mesh follows
+the algorithm alone (every card of a host reaches every other at the same
+rate); collectives go over NCCL on GPUs:
 
 - ``data`` axis: read batches are sharded data-parallel; per-template
-  statistics are merged with ``psum`` over ICI -- replacing the reference's
+  statistics are merged with ``psum`` -- replacing the reference's
   ``ll_mutex``-guarded hit accumulation with a collective reduction.  The
   reference's own ``findseqs(f) == findseqs([f1,f2])`` invariant
   (tests/test_engine.py:184-205) licenses offset-independent merging.
@@ -100,48 +102,64 @@ class ShardBank:
         self.d_of = np.stack(d_of)
         self.seql_of = np.stack(seql_of)
 
-    def device_arrays(self, dtype_name):
+    def device_arrays(self, mesh):
+        ''' one-hot bank + per-column metadata for
+            :py:func:`sharded_scan_step`, placed sharded over ``mesh``'s
+            'bank' axis '''
         import jax
         import jax.numpy as jnp
-        dtype = jnp.dtype(dtype_name)
+        from kvarq_tpu.device import compute_dtype
         bank_oh = jax.nn.one_hot(jnp.asarray(self.codes), encode.NBASE,
-                                 dtype=dtype)                # [nb, G, 5]
-        bank_oh = jnp.transpose(bank_oh, (0, 2, 1))          # [nb, 5, G]
-        return dict(
-            bank_oh=bank_oh,
-            d_of=jnp.asarray(self.d_of),
-            seql_of=jnp.asarray(self.seql_of),
-            tid=jnp.asarray(self.tid),
-            valid_q=jnp.asarray(self.tid >= 0),
-        )
+                                 dtype=compute_dtype())      # [nb, G, 5]
+        return _put_bank(mesh, dict(
+            bank_oh=jnp.transpose(bank_oh, (0, 2, 1)),      # [nb, 5, G]
+            d_of=self.d_of, seql_of=self.seql_of, tid=self.tid,
+            valid_q=self.tid >= 0))
 
     def channels(self):
         ''' one-hot channel count, consistent over all shards '''
-        from kvarq_tpu.engine import pallas_scan
-        return pallas_scan.bank_channels(self.codes)
+        from kvarq_tpu.engine import screen_scan
+        return screen_scan.bank_channels(self.codes)
 
-    def pallas_device_arrays(self, T, TQ):
-        ''' per-shard K / qmeta / tseg stacked to [n_bank, ...] with a
-            common padded Qp; tseg uses global template numbering '''
-        import jax
-        import jax.numpy as jnp
-        from kvarq_tpu.engine import pallas_scan
+    def screen_device_arrays(self, mesh, T):
+        ''' per-shard K / qmeta / tseg stacked to [n_bank, ...] over the
+            common width Qp = G + Lpad - 1, placed sharded over
+            ``mesh``'s 'bank' axis; tseg uses global template numbering '''
+        from kvarq_tpu.device import compute_dtype
+        from kvarq_tpu.engine import screen_scan
 
-        Qp = max(-(-(self.G + self.Lpad - 1) // TQ) * TQ, TQ)
+        Qp = self.G + self.Lpad - 1
         nch = self.channels()
         Ks, qmetas, tsegs = [], [], []
         for (lo, hi), b in zip(self.ranges, self.sub):
-            Ks.append(pallas_scan.build_K_np(b.codes, self.Lpad, Qp,
+            Ks.append(screen_scan.build_K_np(b.codes, self.Lpad, Qp,
                                              nch=nch))
-            qmetas.append(pallas_scan.pack_qmeta(b, Qp=Qp))
-            tseg = pallas_scan.pack_tseg(b, T, Qp=Qp)
+            qmetas.append(screen_scan.pack_qmeta(b, Qp=Qp))
+            tseg = screen_scan.pack_tseg(b, T, Qp=Qp)
             tseg[tseg != T] += lo
             tsegs.append(tseg)
-        return dict(
-            K=jax.device_put(np.stack(Ks)),          # [nb, L*nch, Qp]
-            qmeta=jnp.asarray(np.stack(qmetas)),     # [nb, 8, Qp]
-            tseg=jnp.asarray(np.stack(tsegs)),       # [nb, Qp]
-        ), Qp
+        return _put_bank(mesh, dict(
+            K=np.stack(Ks).astype(compute_dtype()),  # [nb, L*nch, Qp]
+            qmeta=np.stack(qmetas),                  # [nb, NROWS, Qp]
+            tseg=np.stack(tsegs),                    # [nb, Qp]
+        ))
+
+
+def _put_bank(mesh, arrays):
+    ''' place [n_bank, ...] arrays sharded over the mesh's 'bank' axis
+        (replicated over 'data'), once, so no step re-shards them '''
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    sharding = NamedSharding(mesh, P('bank'))
+    return {k: jax.device_put(v, sharding) for k, v in arrays.items()}
+
+
+def _put_data(mesh, *arrays):
+    ''' place host read batches sharded over the mesh's 'data' axis '''
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    sharding = NamedSharding(mesh, P('data'))
+    return [jax.device_put(a, sharding) for a in arrays]
 
 
 def sharded_scan_step(mesh, Lpad, G, T, maxerrors, minoverlap,
@@ -179,53 +197,27 @@ def sharded_scan_step(mesh, Lpad, G, T, maxerrors, minoverlap,
     return jax.jit(mapped)
 
 
-def sharded_scan_step_pallas(mesh, Lpad, G, Qp, T, maxerrors, minoverlap,
-                             B_local, interpret=False, TB=None, TQ=None,
-                             nch=encode.NBASE, dense=False):
+def sharded_scan_step_screen(mesh, Lpad, G, T, maxerrors, minoverlap,
+                             B_local, nch=encode.NBASE, dense=False):
     '''
-    shard_map'd scan step running the fused Pallas kernel per device:
-    ``step(codes [B, Lpad], rl [B], K [nb, L*nch, Qp], qmeta [nb, 8, Qp],
-    tseg [nb, Qp]) -> (basecount [n_bank, 5, G], seqhits, seqbasehits)``.
-    ``B`` must equal ``B_local * n_data`` (pad with rl=0 rows).
-    ``dense`` skips the screening kernel + compaction (sieve-fed
+    shard_map'd scan step running the candidate-screen step
+    (kvarq_tpu.engine.screen_scan) per device:
+    ``step(codes [B, Lpad], rl [B], K [nb, L*nch, Qp], qmeta
+    [nb, NROWS, Qp], tseg [nb, Qp]) -> (basecount [n_bank, 5, G],
+    seqhits, seqbasehits)``.  ``B`` must equal ``B_local * n_data`` (pad
+    with rl=0 rows).  ``dense`` skips the screen + compaction (sieve-fed
     batches: every row is a candidate by construction).
     '''
     import jax
     from jax import lax
     from jax.sharding import PartitionSpec as P
-    from kvarq_tpu.engine import pallas_scan
+    from kvarq_tpu.engine import screen_scan
 
-    # check_vma: ON for compiled (real-device) runs -- the pallas output
-    # declares vma=('data','bank') at its pallas_call (match_cand_call)
-    # and all inputs are pvary'd to the joint vma below, so shard_map can
-    # verify the psum collectives.  In *interpret* mode the pallas HLO
-    # interpreter evaluates the discharged kernel jaxpr with plain
-    # eval_jaxpr, where block values carrying vma meet literal operands
-    # without it ("Primitive gt requires varying manual axes to match"),
-    # so the check must stay off there (CPU tests only; the real-hardware
-    # path is fully checked).
-    check_vma = not interpret
-    inner = pallas_scan.scan_step_banked(
-        Lpad, G, Qp, T, maxerrors, minoverlap, B_local,
-        gather_k=0 if dense else min(512, B_local), interpret=interpret,
-        TB=TB or pallas_scan.DEF_TB, TQ=TQ or pallas_scan.DEF_TQ,
-        nch=nch, vma=('data', 'bank') if check_vma else None)
+    inner = screen_scan.scan_step_banked(
+        Lpad, G, T, maxerrors, minoverlap, B_local,
+        gather_k=0 if dense else min(512, B_local), nch=nch)
 
     def shard_fn(codes, rl, K, qmeta, tseg):
-        if check_vma:
-            # the kernel mixes 'data'-varying reads with 'bank'-varying
-            # bank arrays; cast everything to the joint vma
-            pvary = getattr(lax, 'pcast', None)
-            if pvary is not None:
-                codes = pvary(codes, 'bank', to='varying')
-                rl = pvary(rl, 'bank', to='varying')
-                K, qmeta, tseg = (pvary(x, 'data', to='varying')
-                                  for x in (K, qmeta, tseg))
-            else:
-                codes = lax.pvary(codes, 'bank')
-                rl = lax.pvary(rl, 'bank')
-                K, qmeta, tseg = (lax.pvary(x, 'data')
-                                  for x in (K, qmeta, tseg))
         basecount, seqhits, seqbasehits = inner(
             codes, rl, K[0], qmeta[0], tseg[0])
         basecount = lax.psum(basecount, 'data')
@@ -236,97 +228,32 @@ def sharded_scan_step_pallas(mesh, Lpad, G, Qp, T, maxerrors, minoverlap,
     mapped = jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P('data'), P('data'), P('bank'), P('bank'), P('bank')),
-        out_specs=(P('bank'), P(), P()),
-        check_vma=check_vma)
+        out_specs=(P('bank'), P(), P()))
     return jax.jit(mapped)
 
 
-def sharded_hit_flags_step(mesh, Lpad, Qp, B_local, maxerrors, minoverlap,
-                           interpret=False, TB=None, TQ=None,
+def sharded_hit_flags_step(mesh, Lpad, maxerrors, minoverlap,
                            nch=encode.NBASE):
     '''
     shard_map'd candidate-flag step for the mesh hit path (findseqs with
     ``--mesh``): ``flags(codes [B, Lpad] u8, rl [B] i32, K [nb, ., Qp],
-    qmeta [nb, 8, Qp]) -> [B] i32`` -- 1 where the fused kernel flags
-    the read against ANY bank shard (flag counts psum over 'bank').
-    ``B`` must equal ``B_local * n_data``.
+    qmeta [nb, NROWS, Qp]) -> [B] i32`` -- nonzero where the candidate
+    screen (screen_scan.screen_counts) flags the read against ANY bank
+    shard (flag counts psum over 'bank').  ``B`` must divide by the
+    'data' axis size.
     '''
     import jax
     from jax import lax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
-    from kvarq_tpu.engine import pallas_scan
-
-    check_vma = not interpret    # see sharded_scan_step_pallas
-    tb = TB or pallas_scan.DEF_TB
-    Bp = -(-B_local // tb) * tb  # kernel batch rows, tile-aligned
-    kcall = pallas_scan.match_cand_call(
-        Lpad, Qp, Bp, maxerrors, minoverlap,
-        tb, TQ or pallas_scan.DEF_TQ,
-        interpret, nch, ('data', 'bank') if check_vma else None)
+    from kvarq_tpu.engine import screen_scan
 
     def shard_fn(codes, rl, K, qmeta):
-        if check_vma:
-            pvary = getattr(lax, 'pcast', None)
-            if pvary is not None:
-                codes = pvary(codes, 'bank', to='varying')
-                rl = pvary(rl, 'bank', to='varying')
-                K, qmeta = (pvary(x, 'data', to='varying')
-                            for x in (K, qmeta))
-            else:
-                codes = lax.pvary(codes, 'bank')
-                rl = lax.pvary(rl, 'bank')
-                K, qmeta = (lax.pvary(x, 'data') for x in (K, qmeta))
-        rl = rl.astype(jnp.int32)
-        if Bp != B_local:   # pad rows to the kernel tile (rl=0 gates out)
-            codes = jnp.pad(codes, ((0, Bp - B_local), (0, 0)),
-                            constant_values=encode.CODE_READ_JUNK)
-            rl = jnp.pad(rl, (0, Bp - B_local))
-        read_flat = jax.nn.one_hot(codes, nch, dtype=jnp.bfloat16) \
+        read_flat = jax.nn.one_hot(codes, nch, dtype=K.dtype) \
             .reshape(-1, Lpad * nch)
-        rl2d = jnp.broadcast_to(rl[:, None], (Bp, 128))
-        hitpart = kcall(read_flat, rl2d, K[0], qmeta[0])
-        flags = (jnp.sum(hitpart, axis=0) > 0).astype(jnp.int32)
-        return lax.psum(flags[:B_local], 'bank')
-
-    mapped = jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P('data'), P('data'), P('bank'), P('bank')),
-        out_specs=P('data'), check_vma=check_vma)
-    return jax.jit(mapped)
-
-
-def sharded_hit_flags_step_xla(mesh, Lpad, Qp, B_local, maxerrors,
-                               minoverlap, nch=encode.NBASE,
-                               dtype_name='float32'):
-    ''' XLA variant of :py:func:`sharded_hit_flags_step` (CPU meshes /
-        non-pallas platforms): dense per-shard match counts against the
-        precomputed im2col K (built once per bank on host --
-        ShardBank.pallas_device_arrays -- NOT re-derived inside the jit,
-        which would re-materialize the [L*nch, Qp] stack every dispatch)
-        + the exact mode weights; a read flags iff it actually hits '''
-    import jax
-    from jax import lax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    from kvarq_tpu.engine.pallas_scan import ROW_D, ROW_SEQL, ROW_VALID
-    from kvarq_tpu.engine.tensor_scan import mode_weights
-
-    dtype = jnp.dtype(dtype_name)
-
-    def shard_fn(codes, rl, K, qmeta):
-        read_flat = jax.nn.one_hot(codes, nch, dtype=dtype) \
-            .reshape(-1, Lpad * nch)
-        matches = jnp.dot(read_flat, K[0].astype(dtype),
-                          preferred_element_type=jnp.float32)
-        w, _ = mode_weights(
-            matches, rl[:, None].astype(jnp.int32),
-            qmeta[0][ROW_D:ROW_D + 1],
-            qmeta[0][ROW_SEQL:ROW_SEQL + 1],
-            qmeta[0][ROW_VALID:ROW_VALID + 1],
-            maxerrors, minoverlap)
-        flags = (jnp.sum(w, axis=1) > 0).astype(jnp.int32)
-        return lax.psum(flags, 'bank')
+        counts = screen_scan.screen_counts(read_flat, rl, K[0], qmeta[0],
+                                           maxerrors, minoverlap)
+        return lax.psum((counts > 0).astype(jnp.int32), 'bank')
 
     mapped = jax.shard_map(
         shard_fn, mesh=mesh,
@@ -336,21 +263,16 @@ def sharded_hit_flags_step_xla(mesh, Lpad, Qp, B_local, maxerrors,
 
 
 class ShardedMatcher:
-    ''' mesh-sharded counterpart of
-        :py:class:`kvarq_tpu.engine.match_pallas.PallasMatcher` for the
-        hit-list path (``findseqs`` under ``--mesh``): the candidate
-        kernel runs sharded over the ('data', 'bank') mesh, the flagged
-        (sparse) reads are compacted on host and re-scored exactly by the
+    ''' hit-list matcher over a ('data', 'bank') mesh (``findseqs`` under
+        ``--mesh``, or the ``screen`` backend on one device): the
+        candidate flags run sharded over the mesh, the flagged (sparse)
+        reads are compacted on host and re-scored exactly by the
         full-bank XlaMatcher -- triplets, and therefore Hit.file_pos,
         are identical to the unsharded scan (the batch never leaves this
         host, so its global stream offsets stay valid). '''
 
-    MIN_LPAD = 128
-
     def __init__(self, seqs, maxerrors, minoverlap, mesh=None,
-                 b_local=2048, TB=None, TQ=None, backend=None):
-        import os
-        import jax
+                 b_local=2048):
         from kvarq_tpu.engine.match_xla import XlaMatcher
         self.seqs = list(seqs)
         self.maxerrors = maxerrors
@@ -358,52 +280,26 @@ class ShardedMatcher:
         self.mesh = mesh if mesh is not None else make_mesh()
         self.n_data = self.mesh.shape['data']
         self.n_bank = self.mesh.shape['bank']
-        self.platform = jax.default_backend()
-        backend = backend or os.environ.get('KVARQ_TENSOR_BACKEND', 'auto')
-        if backend == 'auto':
-            backend = 'xla' if self.platform == 'cpu' else 'pallas'
-        self.backend = backend
         self.xla = XlaMatcher(seqs, maxerrors, minoverlap)
         self.b_local = b_local
-        self.TB = TB
-        self.TQ = TQ
         self._ctx = {}
 
     def _context(self, Lpad):
         if Lpad not in self._ctx:
-            from kvarq_tpu.engine import pallas_scan
             bank = ShardBank(self.seqs, Lpad, self.n_bank,
                              self.minoverlap)
-            arrays, Qp = bank.pallas_device_arrays(
-                len(self.seqs), self.TQ or pallas_scan.DEF_TQ)
-            if self.backend == 'pallas':
-                step = sharded_hit_flags_step(
-                    self.mesh, Lpad, Qp, self.b_local, self.maxerrors,
-                    self.minoverlap, interpret=(self.platform == 'cpu'),
-                    TB=self.TB, TQ=self.TQ, nch=bank.channels())
-            else:
-                dtype = 'float32' if self.platform == 'cpu' \
-                    else 'bfloat16'
-                step = sharded_hit_flags_step_xla(
-                    self.mesh, Lpad, Qp, self.b_local,
-                    self.maxerrors, self.minoverlap,
-                    nch=bank.channels(), dtype_name=dtype)
-            self._ctx[Lpad] = (bank, arrays, step, ('K', 'qmeta'),
+            arrays = bank.screen_device_arrays(self.mesh, len(self.seqs))
+            step = sharded_hit_flags_step(self.mesh, Lpad, self.maxerrors,
+                                          self.minoverlap,
+                                          nch=bank.channels())
+            self._ctx[Lpad] = (bank, arrays, step,
                                self.b_local * self.n_data)
         return self._ctx[Lpad]
 
     def match_batch(self, batch):
-        import numpy as np
         from kvarq_tpu.engine.reader import RecordBatch
         B, Lpad = batch.codes.shape
-        if Lpad < self.MIN_LPAD:
-            codes = np.full((B, self.MIN_LPAD), encode.CODE_READ_JUNK,
-                            dtype=np.uint8)
-            codes[:, :Lpad] = batch.codes
-            batch = RecordBatch(codes, batch.rl, batch.filepos,
-                                batch.raw)
-            Lpad = self.MIN_LPAD
-        bank, arrays, step, argnames, chunk = self._context(Lpad)
+        bank, arrays, step, chunk = self._context(Lpad)
         if bank.G == 0:
             return np.empty((0, 3), dtype=np.int64)
 
@@ -412,8 +308,8 @@ class ShardedMatcher:
             hi = min(B, lo_ + chunk)
             codes, rl = encode.pad_batch(
                 batch.codes[lo_:hi], batch.rl[lo_:hi], chunk, Lpad)
-            flags = np.asarray(step(codes, rl,
-                                    *(arrays[a] for a in argnames)))
+            flags = np.asarray(step(*_put_data(self.mesh, codes, rl),
+                                    arrays['K'], arrays['qmeta']))
             hit_idx.append(np.flatnonzero(flags[:hi - lo_] > 0) + lo_)
 
         hit_idx = np.concatenate(hit_idx) if hit_idx else \
@@ -438,8 +334,7 @@ class ShardedScanner:
 
     def __init__(self, seqs, maxerrors, minoverlap, mesh=None,
                  backend=None):
-        import os
-        import jax
+        from kvarq_tpu.engine.tensor_scan import resolve_backend
         self.seqs = list(seqs)
         self.maxerrors = maxerrors
         self.minoverlap = minoverlap
@@ -447,20 +342,16 @@ class ShardedScanner:
         self.mesh = mesh if mesh is not None else make_mesh()
         self.n_data = self.mesh.shape['data']
         self.n_bank = self.mesh.shape['bank']
-        self.platform = jax.default_backend()
-        backend = backend or os.environ.get('KVARQ_TENSOR_BACKEND', 'auto')
-        if backend == 'auto':
-            backend = 'xla' if self.platform == 'cpu' else 'pallas'
-        self.backend = backend
+        self.backend = resolve_backend(backend)
         self.dense = False
         self._ctx = {}
         self.reset()
 
     def assume_dense(self):
         ''' declare the input candidate-dense (sieve-fed batches): the
-            per-device Pallas screening kernel + compaction are skipped
-            in favor of the exact full-batch pass '''
-        if self.backend == 'pallas' and not self._ctx:
+            per-device candidate screen + compaction are skipped in
+            favor of the exact full-batch pass '''
+        if self.backend == 'screen' and not self._ctx:
             self.dense = True
 
     def reset(self):
@@ -468,67 +359,48 @@ class ShardedScanner:
         self.seqhits = np.zeros(self.T, dtype=np.int64)
         self.seqbasehits = np.zeros(self.T, dtype=np.int64)
 
-    # per-device batch rows for the pallas sharded step (static shape:
-    # every global batch is chunked/padded to n_data * B_LOCAL rows);
-    # TB/TQ override the kernel tiles (tests use tiny ones)
+    # per-device batch rows for the screen sharded step (static shape:
+    # every global batch is chunked/padded to n_data * B_LOCAL rows)
     B_LOCAL = 2048
-    TB = None
-    TQ = None
 
     def _context(self, Lpad):
         if Lpad not in self._ctx:
-            from kvarq_tpu.engine import pallas_scan
             bank = ShardBank(self.seqs, Lpad, self.n_bank,
                              self.minoverlap)
-            if self.backend == 'pallas':
-                arrays, Qp = bank.pallas_device_arrays(
-                    self.T, self.TQ or pallas_scan.DEF_TQ)
-                step = sharded_scan_step_pallas(
-                    self.mesh, Lpad, bank.G, Qp, self.T, self.maxerrors,
-                    self.minoverlap, self.B_LOCAL,
-                    interpret=(self.platform == 'cpu'),
-                    TB=self.TB, TQ=self.TQ, nch=bank.channels(),
+            if self.backend == 'screen':
+                arrays = bank.screen_device_arrays(self.mesh, self.T)
+                step = sharded_scan_step_screen(
+                    self.mesh, Lpad, bank.G, self.T, self.maxerrors,
+                    self.minoverlap, self.B_LOCAL, nch=bank.channels(),
                     dense=self.dense)
+                args = (arrays['K'], arrays['qmeta'], arrays['tseg'])
                 sub = self.B_LOCAL * self.n_data
             else:
-                dtype = 'float32' if self.platform == 'cpu' else 'bfloat16'
-                arrays = bank.device_arrays(dtype)
+                from kvarq_tpu.device import compute_dtype
+                arrays = bank.device_arrays(self.mesh)
                 step = sharded_scan_step(
                     self.mesh, Lpad, bank.G, self.T, self.maxerrors,
-                    self.minoverlap, dtype_name=dtype)
+                    self.minoverlap, dtype_name=compute_dtype())
+                args = (arrays['bank_oh'], arrays['d_of'],
+                        arrays['seql_of'], arrays['tid'],
+                        arrays['valid_q'])
                 sub = None   # any multiple of n_data
-            self._ctx[Lpad] = (bank, arrays, step, sub)
+            self._ctx[Lpad] = (bank, args, step, sub)
         return self._ctx[Lpad]
 
     def scan_batch(self, batch):
-        import jax.numpy as jnp
-        from kvarq_tpu.engine.tensor_scan import TensorScanner
         B, Lpad = batch.codes.shape
         if not self.T:
             return
-        if (self.backend == 'pallas'
-                and Lpad < TensorScanner.MIN_LPAD_PALLAS):
-            # one compiled executable covers all short-read buckets
-            Lpad = TensorScanner.MIN_LPAD_PALLAS
-            codes = np.full((B, Lpad), encode.CODE_READ_JUNK,
-                            dtype=np.uint8)
-            codes[:, :batch.codes.shape[1]] = batch.codes
-            batch = type(batch)(codes, batch.rl, batch.filepos, batch.raw)
-        bank, arrays, step, sub = self._context(Lpad)
+        bank, args, step, sub = self._context(Lpad)
 
         chunk = sub if sub else -(-B // self.n_data) * self.n_data
         for lo_ in range(0, B, chunk):
             codes, rl = encode.pad_batch(
                 batch.codes[lo_:lo_ + chunk], batch.rl[lo_:lo_ + chunk],
                 chunk, Lpad)
-            if self.backend == 'pallas':
-                args = (arrays['K'], arrays['qmeta'], arrays['tseg'])
-            else:
-                args = (arrays['bank_oh'], arrays['d_of'],
-                        arrays['seql_of'], arrays['tid'],
-                        arrays['valid_q'])
             basecount, seqhits, seqbasehits = step(
-                jnp.asarray(codes), jnp.asarray(rl), *args)
+                *_put_data(self.mesh, codes, rl), *args)
             acc = self.basecounts.setdefault(
                 Lpad, np.zeros((self.n_bank, encode.NBASE, bank.G),
                                dtype=np.float64))
@@ -558,7 +430,7 @@ class ShardedScanner:
 
 def dryrun(n_devices):
     ''' compile + execute one sharded scan step on an ``n_devices`` mesh
-        with tiny shapes; used by the driver's multi-chip validation '''
+        with tiny shapes (the multi-device smoke check) '''
     import jax
 
     devices = jax.devices()

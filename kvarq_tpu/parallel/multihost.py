@@ -1,6 +1,6 @@
 '''
 Multi-host scale-out: scan a corpus of FastQ files across the hosts and
-chips of a TPU slice.
+devices of a cluster (one process per host, each driving its local GPUs).
 
 The reference's only batch-level scale-out is "run many ``kvarq scan``
 processes from a shell loop and merge the jsons with ``kvarq summarize``"
@@ -8,12 +8,12 @@ processes from a shell loop and merge the jsons with ``kvarq summarize``"
 parallelism is first-class: every host streams its own shard of the
 input files through the native reader/sieve, all hosts jointly execute
 the sharded scan step over a global ``('data', 'bank')`` mesh, and
-per-template coverage/stat tensors merge with ``psum`` over ICI/DCN --
+per-template coverage/stat tensors merge with ``psum`` --
 one result, bitwise-equal to a single-host scan of the concatenated
 input (the reference's own ``findseqs(f) == findseqs([f1, f2])``
 invariant, tests/test_engine.py:184-205 upstream, licenses the merge).
 
-Usage (run the SAME program on every host of the slice):
+Usage (run the SAME program on every host):
 
     from kvarq_tpu.parallel import multihost
     multihost.initialize()                      # jax.distributed
@@ -25,8 +25,8 @@ Collective contract: every host dispatches the same sequence of steps --
 a host whose file shard is exhausted keeps contributing all-padding
 batches until an all-hosts vote says everyone is done, so no host ever
 blocks alone in a collective.  Single-process it degrades to the plain
-mesh scan, which is how the logic is exercised in tests and the
-driver's virtual-mesh dryrun.
+mesh scan, which is how the logic is exercised in tests on a virtual
+CPU mesh.
 '''
 
 import numpy as np
@@ -34,16 +34,17 @@ import numpy as np
 from kvarq_tpu.engine import encode, reader
 from kvarq_tpu.log import lo
 from kvarq_tpu.parallel import (
-    ShardBank, make_mesh, sharded_scan_step, sharded_scan_step_pallas)
+    ShardBank, make_mesh, sharded_scan_step, sharded_scan_step_screen)
 
 
 def initialize(**kwargs):
-    ''' bring up jax.distributed (no-op when already initialized or
-        single-process).  On TPU pods coordinator/process counts are
-        auto-detected; kwargs pass through for manual setups
-        (coordinator_address=, num_processes=, process_id=), or set the
-        KVARQ_COORDINATOR / KVARQ_NUM_PROCESSES / KVARQ_PROCESS_ID
-        environment variables (picked up by every caller). '''
+    ''' bring up jax.distributed for a multi-process run: kwargs pass
+        through (coordinator_address=, num_processes=, process_id=), or
+        set the KVARQ_COORDINATOR / KVARQ_NUM_PROCESSES /
+        KVARQ_PROCESS_ID environment variables (picked up by every
+        caller).  Without either the run is single-process and nothing
+        is initialized -- no cluster auto-detection is attempted.  A
+        repeated call is a no-op. '''
     import os
     import jax
     if not kwargs and os.environ.get('KVARQ_COORDINATOR'):
@@ -51,10 +52,11 @@ def initialize(**kwargs):
             coordinator_address=os.environ['KVARQ_COORDINATOR'],
             num_processes=int(os.environ['KVARQ_NUM_PROCESSES']),
             process_id=int(os.environ['KVARQ_PROCESS_ID']))
-    try:
-        jax.distributed.initialize(**kwargs)
-    except (RuntimeError, ValueError) as e:   # already initialized / 1 proc
-        lo.debug('jax.distributed.initialize: %s' % e)
+    if kwargs:
+        try:
+            jax.distributed.initialize(**kwargs)
+        except RuntimeError as e:     # already initialized
+            lo.debug('jax.distributed.initialize: %s' % e)
     return jax.process_index(), jax.process_count()
 
 
@@ -145,16 +147,10 @@ def findseqs_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
     mine_idx = set(shard_file_indices(fnames)) if nproc > 1 \
         else set(range(len(fnames)))
 
-    platform = jax.default_backend()
-    backend = backend or ('xla' if platform == 'cpu' else 'pallas')
-    if backend == 'pallas':
-        from kvarq_tpu.engine.match_pallas import PallasMatcher as M
-    elif backend == 'numpy':
-        from kvarq_tpu.engine.match_numpy import NumpyMatcher as M
-    else:
-        from kvarq_tpu.engine.match_xla import XlaMatcher as M
     seqs = list(seqs)
-    matcher = M(seqs, maxerrors, minoverlap)
+    # the same matcher choice as the single-process hit path
+    matcher = _engine.make_matcher(seqs, backend or 'auto', maxerrors,
+                                   minoverlap)
     sieve = KmerSieve.build(seqs, maxerrors, minoverlap, minreadlength)
     seqlens = [len(s) for s in seqs]
     stats = stats if stats is not None else reader.ReaderStats()
@@ -257,7 +253,6 @@ def scan_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
     '''
     import os
     import jax
-    import jax.numpy as jnp
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -279,32 +274,28 @@ def scan_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
     n_data = mesh.shape['data']
     n_bank = mesh.shape['bank']
     T = len(seqs)
-    platform = jax.default_backend()
-    backend = backend or os.environ.get('KVARQ_TENSOR_BACKEND', 'auto')
-    if backend == 'auto':
-        backend = 'xla' if platform == 'cpu' else 'pallas'
+    from kvarq_tpu.engine.tensor_scan import resolve_backend
+    backend = resolve_backend(backend)
 
     from kvarq_tpu.engine.sieve import KmerSieve
     sieve = KmerSieve.build(seqs, maxerrors, minoverlap, minreadlength)
 
     bank = ShardBank(list(seqs), Lpad, n_bank, minoverlap)
-    if backend == 'pallas':
-        from kvarq_tpu.engine import pallas_scan
-        arrays, Qp = bank.pallas_device_arrays(T, pallas_scan.DEF_TQ)
+    if backend == 'screen':
+        arrays = bank.screen_device_arrays(mesh, T)
         # sieve-fed batches are candidate-dense by construction: skip
-        # the screening kernel, run the exact full pass directly.  With
-        # no applicable sieve (short templates / tight configs) the
+        # the screen, run the exact full pass directly.  With no
+        # applicable sieve (short templates / tight configs) the
         # unsieved stream is sparse and keeps the screened path.
-        step = sharded_scan_step_pallas(
-            mesh, Lpad, bank.G, Qp, T, maxerrors, minoverlap, b_local,
-            interpret=(platform == 'cpu'), nch=bank.channels(),
-            dense=sieve is not None)
+        step = sharded_scan_step_screen(
+            mesh, Lpad, bank.G, T, maxerrors, minoverlap, b_local,
+            nch=bank.channels(), dense=sieve is not None)
         args = (arrays['K'], arrays['qmeta'], arrays['tseg'])
     else:
-        dtype = 'float32' if platform == 'cpu' else 'bfloat16'
-        arrays = bank.device_arrays(dtype)
+        from kvarq_tpu.device import compute_dtype
+        arrays = bank.device_arrays(mesh)
         step = sharded_scan_step(mesh, Lpad, bank.G, T, maxerrors,
-                                 minoverlap, dtype_name=dtype)
+                                 minoverlap, dtype_name=compute_dtype())
         args = (arrays['bank_oh'], arrays['d_of'], arrays['seql_of'],
                 arrays['tid'], arrays['valid_q'])
 
@@ -317,7 +308,8 @@ def scan_sharded(fnames, seqs, maxerrors, minoverlap, minreadlength,
 
     def put(codes, rl):
         if nproc == 1:
-            return jnp.asarray(codes), jnp.asarray(rl)
+            return (jax.device_put(codes, data_sharding),
+                    jax.device_put(rl, data_sharding))
         return (jax.make_array_from_process_local_data(data_sharding, codes),
                 jax.make_array_from_process_local_data(data_sharding, rl))
 

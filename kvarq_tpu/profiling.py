@@ -3,7 +3,7 @@ Phase-level scan profiling: wall-clock per-phase breakdown persisted into
 the result json (``info.phases``) plus an optional JAX profiler device
 trace.
 
-TPU-native replacement for the reference's compiled-out per-thread C
+Replacement for the reference's compiled-out per-thread C
 clock profiler (reference csrc/workhorse.c:236-318, hook sites :745 and
 :1001), which attributed thread time to fastq_read vs. the scan loop.
 Here host phases are timed directly around the pipeline stages, and

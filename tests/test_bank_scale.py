@@ -7,7 +7,7 @@ that makes huge barcodes (thousands of SNPs, e.g. whole-genome typing
 schemes) fit: each shard holds 1/n_bank of the K matrix / one-hot bank.
 
 The memory-growth numbers these tests anchor live in
-docs/architecture-tpu.md ("Bank-axis sizing").
+docs/architecture.md ("Bank-axis sizing").
 '''
 
 import numpy as np
@@ -82,7 +82,7 @@ def test_bank_sharded_equals_single_device(bank_and_reads, n_data, n_bank):
 
 def test_bank_shard_memory_split(bank_and_reads):
     ''' the per-shard one-hot bank really is ~1/n_bank of the whole:
-        the point of the axis (docs/architecture-tpu.md sizing table) '''
+        the point of the axis (docs/architecture.md sizing table) '''
     seqs, _ = bank_and_reads
     Lpad = 128
     whole = parallel.ShardBank(seqs, Lpad, 1)

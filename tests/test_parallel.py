@@ -88,10 +88,10 @@ def test_odd_batch_padding():
 @pytest.mark.parametrize('n_data,n_bank,dense',
                          [(4, 2, False), (2, 1, False),
                           (4, 2, True), (2, 1, True)])
-def test_sharded_pallas_equals_hitpath(n_data, n_bank, dense):
-    ''' the per-device Pallas kernel under shard_map (interpret mode on
-        the CPU mesh) matches the hit-list path bitwise -- both the
-        screened path and the dense (assume_dense, no-kernel) path '''
+def test_sharded_screen_equals_hitpath(n_data, n_bank, dense):
+    ''' the per-device candidate-screen step under shard_map matches the
+        hit-list path bitwise -- both the screened path and the dense
+        (assume_dense, no-screen) path '''
     import jax
     if len(jax.devices()) < n_data * n_bank:
         pytest.skip('needs %d (virtual) devices' % (n_data * n_bank))
@@ -106,10 +106,8 @@ def test_sharded_pallas_equals_hitpath(n_data, n_bank, dense):
 
     mesh = parallel.make_mesh(n_data, n_bank)
     scanner = parallel.ShardedScanner(seqs, maxerrors=1, minoverlap=5,
-                                      mesh=mesh, backend='pallas')
+                                      mesh=mesh, backend='screen')
     scanner.B_LOCAL = 8
-    scanner.TB = 8
-    scanner.TQ = 128
     if dense:
         scanner.assume_dense()
         assert scanner.dense
@@ -173,12 +171,12 @@ def test_multihost_shard_files():
     assert shards == [multihost.shard_files(names, p, 3) for p in range(3)]
 
 
-@pytest.mark.parametrize('n_data,n_bank,backend',
-                         [(4, 2, 'xla'), (8, 1, 'xla'), (2, 2, 'pallas')])
-def test_sharded_matcher_parity(n_data, n_bank, backend):
+@pytest.mark.parametrize('n_data,n_bank,b_local',
+                         [(4, 2, 16), (8, 1, 16), (2, 2, 8)])
+def test_sharded_matcher_parity(n_data, n_bank, b_local):
     ''' ShardedMatcher (the --mesh hit path) returns exactly the numpy
         matcher's (read, template, shift) triplets for every mesh shape
-        and both flag backends '''
+        and per-device batch size '''
     import jax
     if len(jax.devices()) < n_data * n_bank:
         pytest.skip('needs %d (virtual) devices' % (n_data * n_bank))
@@ -191,10 +189,8 @@ def test_sharded_matcher_parity(n_data, n_bank, backend):
 
     engine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!')
     mesh = parallel.make_mesh(n_data, n_bank)
-    kw = dict(b_local=8, TB=8, TQ=128) if backend == 'pallas' \
-        else dict(b_local=16)
     matcher = parallel.ShardedMatcher(seqs, 1, 5, mesh=mesh,
-                                      backend=backend, **kw)
+                                      b_local=b_local)
     ref = NumpyMatcher(seqs, 1, 5)
 
     stats = reader.ReaderStats()

@@ -201,7 +201,7 @@ def test_gather_k_default_and_buckets(monkeypatch):
 
     monkeypatch.delenv('KVARQ_GATHER_K', raising=False)
     sc = TensorScanner(['CACCGGTGTAGGCAAGTCGTAACAAGG'], 1, 5)
-    sc.backend = 'pallas'         # policy test only; no device dispatch
+    sc.backend = 'screen'         # policy test only; no device dispatch
     sc._gather_auto = True
     sc.gather_k = 768
     # below the margin: no change
@@ -242,15 +242,14 @@ def test_adapt_gather_rebuilds_in_place(monkeypatch):
     sc.finalize()
 
     # simulate the overflow-driven switch on the live scanner (the
-    # pallas/candmax plumbing needs hardware; the rebuild path is
-    # backend-agnostic once entered)
+    # rebuild path is backend-agnostic once entered)
     (lpad,) = sc._ctx.keys()
-    sc.backend = 'pallas'
+    sc.backend = 'screen'
     sc._gather_auto = True
     sc.gather_k = 768
     real = tensor_scan._cached_context
 
-    def fake_ctx(seqs_t, lp, me, mo, backend, platform, fuse, gk=None):
+    def fake_ctx(seqs_t, lp, me, mo, backend, fuse, gk=None):
         ctx = sc._ctx[lp]
         return ctx['bank'], ctx['arrays'], ctx['step'], ctx['sub']
     monkeypatch.setattr(tensor_scan, '_cached_context', fake_ctx)
@@ -262,19 +261,18 @@ def test_adapt_gather_rebuilds_in_place(monkeypatch):
         assert np.array_equal(r, g.astype(np.int64))
 
 
-def test_tensor_scanner_dense_pallas_parity():
-    ''' TensorScanner with backend='pallas' + assume_dense() (the
+def test_tensor_scanner_dense_screen_parity():
+    ''' TensorScanner with backend='screen' + assume_dense() (the
         production countseqs path on sieve-fed batches) must equal the
-        hit path.  Dense mode skips the Pallas kernel entirely, so this
-        runs as plain XLA on the CPU too -- covering the gather_k=0
-        context build + fuse padding through the real scanner. '''
+        hit path -- covering the gather_k=0 context build + fuse padding
+        through the real scanner. '''
     fname = os.path.join(FASTQS, 'test_engine.fastq')
     seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
 
     engine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!')
     ref_bcs, ref_stats = _hitpath_basecounts(fname, seqs)
 
-    sc = TensorScanner(seqs, 1, 5, backend='pallas')
+    sc = TensorScanner(seqs, 1, 5, backend='screen')
     sc.assume_dense()
     assert sc.gather_k == 0
     stats = reader.ReaderStats()
@@ -285,3 +283,39 @@ def test_tensor_scanner_dense_pallas_parity():
         assert np.array_equal(r, g.astype(np.int64))
     np.testing.assert_array_equal(
         np.asarray(ref_stats['nseqhits']), sc.seqhits)
+
+
+@pytest.mark.parametrize('gather_k', ['auto', '1'])
+def test_tensor_scanner_screen_parity(monkeypatch, gather_k):
+    ''' the screened countseqs path (unsieved input: candidate screen,
+        compaction, and -- with gather_k pinned to 1 -- the full-batch
+        fallback) must equal the hit path '''
+    monkeypatch.setenv('KVARQ_GATHER_K', gather_k)
+    fname = os.path.join(FASTQS, 'test_engine.fastq')
+    seqs = ['CACCGGTGTAGGCAAGTCGTAACAAGG', 'TTTTTTTTTTGGGGGGGGGG', 'CCC']
+
+    engine.config(maxerrors=1, minoverlap=5, minreadlength=5, Amin='!')
+    ref_bcs, ref_stats = _hitpath_basecounts(fname, seqs)
+
+    sc = TensorScanner(seqs, 1, 5, backend='screen')
+    stats = reader.ReaderStats()
+    for batch in reader.batches([fname], ord('!'), 5, stats):
+        sc.scan_batch(batch)
+    sc.finalize()
+    for r, g in zip(ref_bcs, sc.coverages()):
+        assert np.array_equal(r, g.astype(np.int64))
+    np.testing.assert_array_equal(
+        np.asarray(ref_stats['nseqbasehits']), sc.seqbasehits)
+
+
+def test_resolve_backend(monkeypatch):
+    ''' tensor-scan backend choice: explicit > env > capability (the
+        CPU resolves to xla); unknown names are refused '''
+    from kvarq_tpu.engine.tensor_scan import resolve_backend
+    monkeypatch.delenv('KVARQ_TENSOR_BACKEND', raising=False)
+    assert resolve_backend() == 'xla'
+    assert resolve_backend('screen') == 'screen'
+    monkeypatch.setenv('KVARQ_TENSOR_BACKEND', 'screen')
+    assert resolve_backend() == 'screen'
+    with pytest.raises(ValueError):
+        resolve_backend('pallas')

@@ -4,11 +4,10 @@ Multi-chip scaling harness: scans the same synthetic workload with the
 sharded mesh scanner (kvarq_tpu.parallel) over 1..N devices and reports
 reads/s per device count plus scaling efficiency.
 
-On a machine with one (or zero) TPU chips this runs on a virtual CPU
-mesh (``--virtual N``), which validates the sharded path end-to-end and
-measures *relative* scaling of the collective-merged step, but absolute
-CPU numbers say nothing about TPU throughput -- run on a real slice for
-the BASELINE.md "N hosts" measurement points.
+With ``--virtual N`` this runs on a virtual CPU mesh, which validates
+the sharded path end-to-end and measures *relative* scaling of the
+collective-merged step; CPU numbers say nothing about GPU throughput --
+run on real GPUs for device measurements.
 
 Usage:
     python tools/bench_scaling.py [--virtual 8] [--reads 100000]

@@ -24,7 +24,7 @@ PAGE = '''<!DOCTYPE html>
 <head>
 <meta charset="utf-8">
 <meta name="viewport" content="width=device-width, initial-scale=1">
-<title>{title} — KvarQ-TPU</title>
+<title>{title} — kvarq_tpu</title>
 <style>
  body {{ font: 16px/1.55 system-ui, sans-serif; color: #222;
         max-width: 56rem; margin: 0 auto; padding: 1rem 1.5rem 4rem; }}

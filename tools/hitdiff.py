@@ -12,7 +12,7 @@ exercise all 4 overlap modes (reads shorter/longer than templates,
 planted mutations 0-3, low-quality tails), swept over maxerrors 0-3 and
 several minoverlap values.
 
-Usage: python tools/hitdiff.py [--quick] [--backend numpy|xla|pallas]
+Usage: python tools/hitdiff.py [--quick] [--backend numpy|xla|screen]
 Exit 0 = every stream identical; a nonempty diff aborts with context.
 
 Also importable: ``run_case()`` / ``build_ref_bench()`` are used by

@@ -2,7 +2,7 @@
 '''
 Generate ``kvarq_tpu/gui/res/icon.png`` -- the GUI window icon (the
 reference ships ``res/TPH_DNA.ico``; this is an original, deterministic
-drawing: a DNA double helix over a TPU-orange tile).
+drawing: a DNA double helix over an orange tile).
 '''
 
 import math
@@ -20,7 +20,7 @@ S = 64
 def main():
     img = Image.new('RGBA', (S, S), (0, 0, 0, 0))
     d = ImageDraw.Draw(img)
-    # rounded TPU-orange tile
+    # rounded orange tile
     d.rounded_rectangle([2, 2, S - 3, S - 3], radius=12,
                         fill=(253, 176, 92, 255),
                         outline=(168, 100, 18, 255), width=2)

@@ -88,7 +88,8 @@ def main():
             print('MISSING golden strings: %r' % missing, file=sys.stderr)
             return 1
         # 4. the installed native reader must actually load (not the
-        # numpy fallback) -- proves csrc/_reader.so shipped and runs.
+        # numpy fallback) -- proves the wheel build compiled
+        # csrc/_reader.so, shipped it, and that it runs.
         # cwd must NOT be the repo root: python -c puts the cwd on
         # sys.path, which would resolve kvarq_tpu to the source tree
         # and defeat the probe
